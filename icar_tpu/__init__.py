@@ -1,46 +1,44 @@
-"""icar_tpu — a TPU-native rebuild of the ICAR atmospheric downscaling model.
+"""icar_tpu — a JAX rebuild of the ICAR atmospheric downscaling model.
 
-Brand-new JAX/XLA/Pallas implementation of the capabilities of NCAR/ICAR 2.x
-(reference at /root/reference): linear mountain-wave wind downscaling,
-finite-volume advection on a terrain-following grid, column physics
-(microphysics / PBL / radiation / LSM / convection), boundary forcing
-ingest and NetCDF output — designed SPMD-first over a jax.sharding Mesh
-rather than translated from the reference's Coarray Fortran.
+Brand-new JAX/XLA/Pallas implementation of the capabilities of NCAR/ICAR 2.x:
+linear mountain-wave wind downscaling, finite-volume advection on a
+terrain-following grid, column physics (microphysics / PBL / radiation /
+LSM / convection), boundary forcing ingest and NetCDF output — designed
+SPMD-first over a jax.sharding Mesh rather than translated from the
+reference's Coarray Fortran.
 """
+
+import os
 
 __version__ = "0.1.0"
 
+# the compile cache's home when JAX_COMPILATION_CACHE_DIR is not set: a
+# fixed path inside the checkout (listed in .gitignore)
+DEFAULT_CACHE_DIR = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.abspath(__file__))), ".jax_cache")
+
+
+def compilation_cache_dir(environ, platforms: str):
+    """The directory this package points JAX's persistent compile cache
+    at, or None where it sets nothing: JAX reads JAX_COMPILATION_CACHE_DIR
+    itself, and CPU-only sessions (``platforms`` as in JAX_PLATFORMS:
+    tests, virtual-device runs) compile cheaply and skip the cache."""
+    if environ.get("JAX_COMPILATION_CACHE_DIR"):
+        return None
+    if platforms and set(platforms.split(",")) <= {"cpu"}:
+        return None
+    return DEFAULT_CACHE_DIR
+
 
 def _setup_compilation_cache():
-    """Point JAX at a persistent on-disk compilation cache.
-
-    The fullphys while_loop takes ~10 min to compile at CONUS-scale
-    domains; the reference has no analogous cost (Fortran compiles once at
-    build time), so a persistent XLA cache is the TPU-native equivalent of
-    "compile the binary once".  Override the location with
-    ICAR_TPU_XLA_CACHE=<dir>; set it to an empty string to disable.
-    """
-    import os
-
-    path = os.environ.get(
-        "ICAR_TPU_XLA_CACHE",
-        os.path.join(os.path.expanduser("~"), ".cache", "icar_tpu", "xla"))
-    if not path:
-        return
-    try:
-        import jax
-
-        # CPU-only sessions (tests, virtual-device dryruns) skip the cache:
-        # XLA:CPU AOT reloads warn about machine-feature mismatches, and CPU
-        # compiles are cheap anyway.  TPU programs are what take ~10 min.
-        plats = jax.config.jax_platforms or os.environ.get("JAX_PLATFORMS", "")
-        if plats and set(plats.split(",")) <= {"cpu"}:
-            return
-        os.makedirs(path, exist_ok=True)
+    """The full-physics interval step takes minutes to compile at
+    500x500-class domains; the persistent cache compiles it once."""
+    import jax
+    path = compilation_cache_dir(
+        os.environ,
+        jax.config.jax_platforms or os.environ.get("JAX_PLATFORMS", ""))
+    if path is not None:
         jax.config.update("jax_compilation_cache_dir", path)
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 2.0)
-    except Exception:
-        pass  # older jax or read-only filesystem: run without the cache
 
 
 _setup_compilation_cache()

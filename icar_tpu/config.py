@@ -59,7 +59,9 @@ class LtOptions:
     lut_filename: str = "linear_theory_lut.nc"
     # per-device budget for the spatial LUT (the reference prints the
     # per-image footprint and leaves the user to right-size
-    # n_spd/n_dir/n_nsq — linear_winds.f90:664-682; we enforce it)
+    # n_spd/n_dir/n_nsq — linear_winds.f90:664-682; we enforce it).
+    # 6 GB is a tenth of the 60 GB JAX reserves on an 80 GB H100: the
+    # rest holds the state and the interval step's temporaries
     max_lut_gb: float = 6.0
     # host-memory budget for the chunked LUT build (the host only ever
     # holds one ~24-entry chunk of buffered-terrain FFT workspace — the

@@ -1,4 +1,4 @@
-"""Physical and model constants for the TPU-native ICAR rebuild.
+"""Physical and model constants for the JAX ICAR rebuild.
 
 Values mirror the reference model's constants module
 (/root/reference/src/constants/icar_constants.f90:389-420) so that physics

@@ -149,7 +149,7 @@ def write_ideal_files(out_dir: str, nx=60, ny=16, nz_lo=30, dx=1000.0,
                       lat0=39.5, lon0=-105.0):
     """Generate 'init.nc' (hi-res terrain/lat/lon) and 'forcing.nc'
     (nt steps of u, v, theta, qv, p, z on a coarser/larger grid), the
-    TPU-native equivalent of helpers/genNetCDF Topography+Forcing driven by
+    counterpart of helpers/genNetCDF Topography+Forcing driven by
     tests/gen_ideal_test.py. Returns (init_path, forcing_path)."""
     import os
 

@@ -10,7 +10,7 @@ Host-side (numpy) replacement for:
 Array layout: 3D fields are (z, y, x); x is the fastest dimension.
 The decomposition functions are pure index math usable for any rank without
 communication (the property the reference's LUT distribution relies on,
-grid_obj.f90:52-53) — in the TPU rebuild they are used to compute per-device
+grid_obj.f90:52-53) — here they are used to compute per-device
 tile shapes for sharded IO and to validate mesh shardings.
 """
 

@@ -141,7 +141,7 @@ class AsyncStepWriter:
 
 
 class ShardedOutputWriter:
-    """File-per-shard output — the TPU equivalent of the reference's
+    """File-per-shard output — the counterpart of the reference's
     file-per-image NetCDF output (driver.f90:94-102): every addressable
     shard of the device mesh writes its own file with the decomposition
     recorded in global attrs (the ids/ide/jds/jde pattern of

@@ -3,9 +3,9 @@
 JAX re-implementation of the first-order donor-cell (upwind) scheme
 (/root/reference/src/physics/advect.f90). Fields are (z, y, x).
 
-TPU-first design notes:
+Design notes:
   * All advected species are stacked into one (nq, nz, ny, nx) array and
-    advected by a single vmapped kernel so XLA fuses one pass over HBM
+    advected in one batch-generic call so XLA fuses one pass over memory
     instead of one pass per species (the reference loops species serially,
     advect.f90:400-410).
   * Branchless flux form f = ((U+|U|) q_l + (U-|U|) q_r)/2 matches the
@@ -55,14 +55,13 @@ def _upwind_flux(ql, qr, U):
 
 
 def advect3d_upwind(q, winds: CourantWinds, rho, dz, jaco,
-                    advect_density: bool = False, canon=None):
+                    advect_density: bool = False):
     """Donor-cell update of one scalar field (advect3d, advect.f90:107-178).
 
     Returns the advected field; interior cells only (x,y in [1, n-2]).
     Batch-generic over leading dims: a stacked (nq, nz, ny, nx) species
-    array advects in ONE call — vmap was dropped deliberately, because
-    vmapping the static `.at[].add` update lowers it to a TPU scatter
-    (measured GB-scale scatter traffic per substep) while the direct
+    array advects in ONE call — no vmap, because vmapping the static
+    `.at[].add` update lowers it to a scatter, while the direct
     broadcasted form stays a fused slice-update."""
     U_m, V_m, W_m = winds
 
@@ -97,11 +96,7 @@ def advect3d_upwind(q, winds: CourantWinds, rho, dz, jaco,
     dq = dq + vert_in / (dzi * jacoi)
 
     # concat form of q.at[..., 1:-1, 1:-1].add(-dq): bit-identical
-    # (border cells subtract an exact zero) and Mosaic-compatible, so
-    # the MPDATA Pallas kernel reuses this function on VMEM windows
-    # (canon = the kernel's layout-normalization hook, see mpdata)
-    if canon is not None:
-        dq = canon(dq)
+    # (border cells subtract an exact zero)
     zy = jnp.zeros_like(dq[..., :1, :])
     dqy = jnp.concatenate([zy, dq, zy], axis=-2)
     zx = jnp.zeros_like(q[..., :1])
@@ -111,21 +106,13 @@ def advect3d_upwind(q, winds: CourantWinds, rho, dz, jaco,
 
 def advect_upwind(stacked_q, u, v, w, dt, dx, jaco_u, jaco_v, jaco_w,
                   jaco, rho, dz, advect_density: bool = False,
-                  use_pallas: bool = True, floors=None, near_end=None):
+                  floors=None, near_end=None):
     """Advect all species at once: ``stacked_q`` is (nq, nz, ny, nx)
-    (upwind, advect.f90:380-418). On TPU (and without density advection)
-    the fused Pallas stencil kernel is used; the vmapped jnp path is the
-    reference implementation.
+    (upwind, advect.f90:380-418).
 
-    ``floors``/``near_end``: optional per-species enforce_limits clamp
-    folded into the kernel epilogue (applied only when near_end > 0);
-    the jnp path applies the same clamp explicitly."""
-    if use_pallas and not advect_density:
-        from . import pallas_kernels as pk
-        if pk.kernels_available():
-            return pk.advect_upwind_tpu(stacked_q, u, v, w, dx, jaco_u,
-                                        jaco_v, jaco_w, dz, jaco, dt,
-                                        floors=floors, near_end=near_end)
+    ``floors``/``near_end``: optional per-species enforce_limits clamp,
+    applied only when near_end > 0 (the interval loop's near-end negative
+    clamp, time_step.f90:537-539)."""
     winds = setup_courant_winds(u, v, w, dt, dx, jaco_u, jaco_v, jaco_w,
                                 rho, advect_density)
     out = advect3d_upwind(stacked_q, winds, rho, dz, jaco, advect_density)

@@ -113,8 +113,8 @@ def build_blocking_lut(terrain: np.ndarray, dx: float,
     k_np, l_np, kl_np = (np.asarray(a, np.float32) for a in (k, l, kl))
 
     def one_entry(u, v):
-        # host pocketfft build, like the spatial LUT (the TPU backend
-        # refuses the batched-FFT program; see linear_winds.build_lut)
+        # host pocketfft build, like the spatial LUT (see
+        # linear_winds.build_lut_chunks)
         ups, vps = [], []
         for z in range(nz):
             up, vp = perturbation_layer_np(

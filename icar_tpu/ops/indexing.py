@@ -1,10 +1,8 @@
-"""Per-column level selection without TPU gathers.
+"""Per-column level selection without gathers.
 
-On TPU an XLA gather costs roughly per-index-vector (6-24 ms for one
-fancy-index lookup over a 300x300x20 grid on v5e), which made
-``take_along_axis`` level selections the dominant cost of several column
-physics schemes. For a SMALL leading axis (z levels, soil/snow layers)
-an unrolled where-chain compiles to one fused elementwise pass instead.
+For a SMALL leading axis (z levels, soil/snow layers) an unrolled
+where-chain compiles to one fused elementwise pass instead of a
+``take_along_axis`` gather per selection.
 """
 
 from __future__ import annotations

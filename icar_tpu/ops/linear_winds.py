@@ -3,20 +3,19 @@
 JAX re-implementation of /root/reference/src/physics/linear_winds.f90 and
 the stability helpers in atm_utilities.f90:334-467.
 
-TPU-first design (each point measured, see docs/perf_roofline.md):
+Design:
   * The spatial look-up table build — the reference's distributed
     72k-FFT hotspot (initialize_spatial_winds, linear_winds.f90:596-830,
     work split across coarray images) — runs ONCE on the host with
-    scipy's multithreaded pocketfft (no XLA compile step; the TPU
-    backend refuses the batched-FFT program and XLA:CPU compiles longer
-    than the math runs), then ships to the device(s) once, sharded over
-    the mesh's (y, x) dims exactly like the state.
+    scipy's multithreaded pocketfft (no XLA compile step; XLA:CPU
+    compiles the batched-FFT program longer than the math runs), then
+    ships to the device(s) once, sharded over the mesh's (y, x) dims
+    exactly like the state.
   * The runtime lookup (spatial_winds, linear_winds.f90:840-1127) — per
     cell trilinear interpolation over (spd, dir, nsq) — is a lax.scan
     over table entries with fused one-hot corner weights: the table
-    streams through HBM exactly once per wind update and each device
-    touches only its own shard (per-cell gathers measured ~100x slower
-    on TPU).
+    streams through device memory exactly once per wind update and each
+    device touches only its own shard.
 """
 
 from __future__ import annotations
@@ -280,9 +279,8 @@ def build_lut_chunks(terrain: np.ndarray, dx: float, dz_levels: np.ndarray,
     buffered terrain spectrum (the reference distributes exactly this
     work across images, linear_winds.f90:596-830, and each image stores
     only its LOCAL spatial slice — alloc :664-665). A device build was
-    tried twice and rejected: XLA:CPU spends longer compiling the
-    unrolled batched-FFT program than numpy takes to run it, and the
-    TPU backend refuses the program outright (UNIMPLEMENTED).
+    tried and rejected: XLA:CPU spends longer compiling the unrolled
+    batched-FFT program than numpy takes to run it.
 
     Host memory stays O(chunk * nz * buffered-grid) regardless of E —
     the consumer (place_lut_chunks) crops/pads each chunk and places it
@@ -619,10 +617,9 @@ def _interp_lut(lut_flat, spos, nexts, dpos, nextd, npos, nextn,
     """Trilinear interpolation of the (spd, dir, nsq) table
     (linear_winds.f90:1083-1115), as ONE streaming pass over the table.
 
-    The textbook formulation — 8 flat-index take_along_axis gathers —
-    costs minutes per wind update at bench scale: TPU gathers with
-    per-cell indices do not lower to batched selects (measured ~110 s
-    per update over a 4.8 GB table). Instead the 8 corner weights are
+    The textbook formulation is 8 flat-index take_along_axis gathers
+    with per-cell indices into a multi-GB table. Instead the 8 corner
+    weights are
     expressed as a per-entry one-hot weight
         W[e] = ws(e_spd) * wd(e_dir) * wn(e_nsq)
     and the interpolation is a lax.scan accumulation over the E table

@@ -26,17 +26,9 @@ EPS_F = 1e-15
 
 
 
-def _add_interior(x, delta, axis, canon=None):
+def _add_interior(x, delta, axis):
     """x with ``delta`` added on the interior slices of ``axis`` (the
-    concat form of x.at[..., 1:-1, ...].add(delta) — bit-identical, and
-    it lowers inside Mosaic kernels where a value dynamic-update-slice
-    does not). ``canon`` is the Pallas kernels' layout-normalization
-    hook (a VMEM scratch round-trip): Mosaic concatenate requires its
-    inputs to agree on the offsets of NON-concat dims, and values built
-    from lane-shifted operands carry a lane-offset layout."""
-    if canon is not None:
-        x = canon(x)
-        delta = canon(delta)
+    concat form of x.at[..., 1:-1, ...].add(delta) — bit-identical)."""
 
     def sl(a, s):
         idx = [slice(None)] * a.ndim
@@ -47,13 +39,13 @@ def _add_interior(x, delta, axis, canon=None):
          sl(x, slice(1, -1)) + delta,
          sl(x, slice(-1, None))], axis=axis)
 
-def _pseudo_velocities(q, U, V, Wn, G, canon=None):
+def _pseudo_velocities(q, U, V, Wn, G):
     """Antidiffusive pseudo-velocities (mpdata_fluxes,
     adv_mpdata.f90:107-259). ``Wn`` is the dz-normalized vertical Courant
     wind; ``G`` = jacobian*rho (Smolarkiewicz & Margolin 1998 notation).
     Returns (u2, v2, w2) shaped like (U, V, W) broadcast against q's
     leading dims — batch-generic so a stacked species array processes in
-    one pass (vmap would lower the .at[].add interior updates to TPU
+    one pass (vmap would lower the .at[].add interior updates to
     scatters)."""
     # ---- U component: faces between x cells (c, c+1) ----
     ql, qr = q[..., :-1], q[..., 1:]
@@ -65,7 +57,7 @@ def _pseudo_velocities(q, U, V, Wn, G, canon=None):
           / (qn[..., 1:] + qs[..., 1:] + qn[..., :-1] + qs[..., :-1] + EPS_Q))
     ev = 0.25 * (V[:, :-1, :-1] + V[:, 1:, :-1] + V[:, :-1, 1:] + V[:, 1:, 1:])
     cross = 0.5 * U[:, 1:-1, :] * ev * eq / Gx[:, 1:-1, :]
-    u2 = _add_interior(u2, -cross, axis=-2, canon=canon)
+    u2 = _add_interior(u2, -cross, axis=-2)
     # UxW cross term (interior z levels)
     qu, qd = q[..., 2:, :, :], q[..., :-2, :, :]
     eq = ((qu[..., 1:] - qd[..., 1:] + qu[..., :-1] - qd[..., :-1])
@@ -73,7 +65,7 @@ def _pseudo_velocities(q, U, V, Wn, G, canon=None):
     ev = 0.25 * (Wn[1:-1, :, :-1] + Wn[:-2, :, :-1]
                  + Wn[1:-1, :, 1:] + Wn[:-2, :, 1:])
     cross = 0.5 * U[1:-1] * ev * eq / Gx[1:-1]
-    u2 = _add_interior(u2, -cross, axis=-3, canon=canon)
+    u2 = _add_interior(u2, -cross, axis=-3)
 
     # ---- V component: faces between y rows (g, g+1) ----
     ql, qr = q[..., :-1, :], q[..., 1:, :]
@@ -87,7 +79,7 @@ def _pseudo_velocities(q, U, V, Wn, G, canon=None):
              + qw[..., :-1, :] + EPS_Q))
     ev = 0.25 * (U[:, :-1, :-1] + U[:, 1:, :-1] + U[:, :-1, 1:] + U[:, 1:, 1:])
     cross = 0.5 * V[:, :, 1:-1] * ev * eq / Gy[:, :, 1:-1]
-    v2 = _add_interior(v2, -cross, axis=-1, canon=canon)
+    v2 = _add_interior(v2, -cross, axis=-1)
     # VxW cross (interior z)
     qu, qd = q[..., 2:, :, :], q[..., :-2, :, :]
     eq = ((qu[..., :-1, :] - qd[..., 1:, :] + qu[..., 1:, :] - qd[..., :-1, :])
@@ -96,7 +88,7 @@ def _pseudo_velocities(q, U, V, Wn, G, canon=None):
     ev = 0.25 * (Wn[1:-1, :-1, :] + Wn[:-2, :-1, :]
                  + Wn[1:-1, 1:, :] + Wn[:-2, 1:, :])
     cross = 0.5 * V[1:-1] * ev * eq / Gy[1:-1]
-    v2 = _add_interior(v2, -cross, axis=-3, canon=canon)
+    v2 = _add_interior(v2, -cross, axis=-3)
 
     # ---- W component: faces between levels (k, k+1), top = 0 ----
     ql, qr = q[..., :-1, :, :], q[..., 1:, :, :]
@@ -111,7 +103,7 @@ def _pseudo_velocities(q, U, V, Wn, G, canon=None):
              + qw[..., 1:, :, :] + EPS_Q))
     ev = 0.25 * (U[:-1, :, :-1] + U[1:, :, :-1] + U[:-1, :, 1:] + U[1:, :, 1:])
     cross = 0.5 * Wf[:, :, 1:-1] * ev * eq / Gz[:, :, 1:-1]
-    w2f = _add_interior(w2f, -cross, axis=-1, canon=canon)
+    w2f = _add_interior(w2f, -cross, axis=-1)
     # WxV cross (interior y)
     qn, qs = q[..., 2:, :], q[..., :-2, :]
     eq = ((qn[..., 1:, :, :] - qs[..., :-1, :, :] + qn[..., :-1, :, :]
@@ -120,10 +112,8 @@ def _pseudo_velocities(q, U, V, Wn, G, canon=None):
              + qs[..., :-1, :, :] + EPS_Q))
     ev = 0.25 * (V[:-1, :-1, :] + V[1:, :-1, :] + V[:-1, 1:, :] + V[1:, 1:, :])
     cross = 0.5 * Wf[:, 1:-1, :] * ev * eq / Gz[:, 1:-1, :]
-    w2f = _add_interior(w2f, -cross, axis=-2, canon=canon)
+    w2f = _add_interior(w2f, -cross, axis=-2)
 
-    if canon is not None:
-        w2f = canon(w2f)
     w2 = jnp.concatenate([w2f, jnp.zeros_like(w2f[..., :1, :, :])],
                          axis=-3)
     return u2, v2, w2
@@ -133,8 +123,7 @@ def _upwind_flux(ql, qr, U):
     return ((U + jnp.abs(U)) * ql + (U - jnp.abs(U)) * qr) * 0.5
 
 
-def _fct_limit_axis(q0, q1, U2, axis: int, is_w: bool,
-                    no_limit_mask=None, canon=None):
+def _fct_limit_axis(q0, q1, U2, axis: int, is_w: bool):
     """1D flux-corrected transport limiter along ``axis``
     (adv_mpdata_FCT_core.f90; Smolarkiewicz & Grabowski 1990).
 
@@ -143,7 +132,7 @@ def _fct_limit_axis(q0, q1, U2, axis: int, is_w: bool,
     ``axis`` counts from the end (x=-1, y=-2, z=-3) so stacked species
     arrays limit in one pass. Axis-generic SLICING (no moveaxis): the
     transposes a moved-axis formulation pays break XLA fusion and
-    materialize full-stack copies on TPU."""
+    materialize full-stack copies."""
     def sl(a, s):
         idx = [slice(None)] * a.ndim
         idx[axis] = s
@@ -153,8 +142,6 @@ def _fct_limit_axis(q0, q1, U2, axis: int, is_w: bool,
         return jnp.concatenate(parts, axis=axis)
 
     f = _upwind_flux(sl(q1, slice(None, -1)), sl(q1, slice(1, None)), U2)
-    if canon is not None:
-        f = canon(f)
 
     # per-cell allowable bounds from the 3-cell window (truncated at edges)
     # of both the original and upwind fields
@@ -176,13 +163,7 @@ def _fct_limit_axis(q0, q1, U2, axis: int, is_w: bool,
     f_right = cat([f, zero])                       # face above/right of cell
     fin = jnp.maximum(0.0, f_left) - jnp.minimum(0.0, f_right)
     fout = jnp.maximum(0.0, f_right) - jnp.minimum(0.0, f_left)
-    if no_limit_mask is not None:
-        # in-kernel window execution: the DOMAIN boundary is not the
-        # array edge — the caller marks the true boundary cells
-        keep = 1.0 - no_limit_mask
-        fin = fin * keep
-        fout = fout * keep
-    elif not is_w:
+    if not is_w:
         # no flux limiting at the lateral boundary cells
         # (adv_mpdata_FCT_core.f90 'No flux limitations to the boundary
         # cell'): zero the edge slices via masked concat (a static-index
@@ -236,24 +217,14 @@ def advect3d_mpdata(q, winds: CourantWinds, rho, dz, jaco, order: int,
 
 def advect_mpdata(stacked_q, u, v, w, dt, dx, jaco_u, jaco_v, jaco_w, jaco,
                   rho, dz, order: int = 2, use_fct: bool = True,
-                  advect_density: bool = False, use_pallas: bool = True,
-                  floors=None, near_end=None):
+                  advect_density: bool = False, floors=None, near_end=None):
     """Advect all species with MPDATA in one stacked pass (mpdata,
-    adv_mpdata.f90:463-524). On TPU (no density advection, order <= 3)
-    the fused window kernel runs the whole scheme in VMEM; the jnp path
-    below is the reference implementation (and the sharded path).
+    adv_mpdata.f90:463-524).
 
     ``floors``/``near_end``: optional fused enforce_limits epilogue —
     when near_end > 0, clamp species s to >= floors[s] (the interval
     loop's near-end negative clamp, time_step.f90:537-539), saving a
     whole-stack masked rewrite per substep."""
-    if use_pallas and not advect_density and order <= 3:
-        from . import pallas_kernels as pk
-        if pk.kernels_available():
-            return pk.advect_mpdata_tpu(stacked_q, u, v, w, dx, jaco_u,
-                                        jaco_v, jaco_w, dz, jaco, dt,
-                                        order, use_fct, floors=floors,
-                                        near_end=near_end)
     winds = setup_courant_winds(u, v, w, dt, dx, jaco_u, jaco_v, jaco_w,
                                 rho, advect_density)
     if not advect_density:
@@ -261,7 +232,7 @@ def advect_mpdata(stacked_q, u, v, w, dt, dx, jaco_u, jaco_v, jaco_w, jaco,
     else:
         rho_eff = rho
     # batch-generic over the species dim (see _pseudo_velocities: vmap
-    # would turn every interior .at[].add into a TPU scatter)
+    # would turn every interior .at[].add into a scatter)
     out = advect3d_mpdata(stacked_q, winds, rho_eff, dz, jaco, order,
                           use_fct, advect_density)
     if floors is not None and near_end is not None:

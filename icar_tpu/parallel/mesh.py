@@ -1,12 +1,12 @@
 """Device mesh construction and state sharding.
 
-TPU-native replacement for the coarray image grid (grid_obj.f90
+The replacement for the coarray image grid (grid_obj.f90
 domain_decomposition + the exchangeable_t halo machinery, SURVEY.md
 section 2.6): the (x, y) spatial decomposition becomes a
 ``jax.sharding.Mesh`` with axes ('y', 'x'); every (z, y, x) field is
 sharded P(None, 'y', 'x') — z stays on-device whole because column physics
 is z-local. Halo exchange is not written by hand: stencil slices on sharded
-arrays compile to XLA collective-permutes over ICI.
+arrays compile to XLA collective-permutes between devices.
 """
 
 from __future__ import annotations
@@ -27,7 +27,7 @@ def padded_sizes(nx: int, ny: int, mesh: Mesh):
     Top-level shardings in XLA require even divisibility, and a C-grid mixes
     nx and nx+1 arrays; we store every sharded field in one padded
     (NYP, NXP) frame (pad cells are edge-replicated, never read by the
-    static-bounds ops) — the TPU equivalent of the reference's
+    static-bounds ops) — the counterpart of the reference's
     nx_extra/ny_extra staggered bookkeeping (grid_obj.f90:160-193)."""
     mx = mesh.shape["x"]
     my = mesh.shape["y"]

@@ -472,8 +472,8 @@ def cuasc(tenh, qenh, ten, qen, qsen, geo, geoh, pap, paph, qte, verv,
     def setrow(a, i, v):
         return jax.lax.dynamic_update_index_in_dim(a, v, i, 0)
 
-    # per-column gathers hoisted out of the level loop (TPU gathers are
-    # expensive; these are loop-invariant — ictop0/khmin never change
+    # per-column gathers hoisted out of the level loop (these are
+    # loop-invariant — ictop0/khmin never change
     # inside the loop, and paph(kcbot) is carried and refreshed on
     # mid-level onset)
     paph_top = _lev(paph, ictop0)

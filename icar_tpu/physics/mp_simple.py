@@ -1,4 +1,4 @@
-"""SB04 "simple" microphysics, vectorized for TPU.
+"""SB04 "simple" microphysics, vectorized over the grid.
 
 JAX re-implementation of /root/reference/src/physics/mp_simple.f90 (the
 microphysics of Smith & Barstad 2004): instant saturation adjustment with
@@ -8,9 +8,10 @@ evaporation/sublimation of falling precipitation.
 
 The reference is branch-dense scalar column code under an OpenMP loop; here
 every branch becomes a masked `jnp.where` over the whole (z, y, x) grid so
-the VPU processes all columns at once. The saturation-adjustment iteration
-(up to 15 Newton-like halving steps, mp_simple.f90:217-246) runs as a fixed
-`fori_loop` with a per-cell convergence mask.
+all columns are processed at once. The saturation-adjustment iteration
+(up to 15 Newton-like halving steps, mp_simple.f90:217-246) runs as a
+`while_loop` with a per-cell convergence mask. On the GPU the whole scheme
+runs as one column-local kernel instead (ops/sb04_kernel.py).
 """
 
 from __future__ import annotations
@@ -52,15 +53,9 @@ def sat_mr(temperature, pressure):
     return 0.6219907 * e_s / (pressure - e_s)
 
 
-def cloud_conversion(pressure, temperature, qv, qc, dt, use_pallas=False):
+def cloud_conversion(pressure, temperature, qv, qc, dt):
     """Saturation adjustment with latent heating (cloud_conversion,
-    mp_simple.f90:198-280). Returns (temperature, qv, qc, qvsat).
-
-    This is the jnp reference implementation; on TPU the whole scheme runs
-    as one fused Pallas kernel (ops/pallas_kernels.mp_simple_tpu) that
-    includes this convergence loop. ``use_pallas`` is accepted (and
-    ignored) for call-site compatibility."""
-    del use_pallas
+    mp_simple.f90:198-280). Returns (temperature, qv, qc, qvsat)."""
     pre_t, pre_qv, pre_qc = temperature, qv, qc
     vapor2temp = (LH_VAPOR + (373.15 - temperature) * DLHVDT) / HEAT_CAPACITY
 
@@ -139,14 +134,14 @@ def phase_change(temperature, q1, qmax, q2, lheat, change_rate):
 
 
 def mp_conversions(pressure, temperature, qv, qc, qr, qs, dt,
-                   cloud2rain, cloud2snow, use_pallas=True):
+                   cloud2rain, cloud2snow):
     """All per-cell conversions (mp_conversions, mp_simple.f90:381-420)."""
     l_melt = -LH_LIQUID
     l_evap = -(LH_VAPOR + (373.15 - temperature) * DLHVDT)
     l_subl = l_melt + l_evap
 
     temperature, qv, qc, qvsat = cloud_conversion(pressure, temperature, qv,
-                                                  qc, dt, use_pallas)
+                                                  qc, dt)
 
     any_species = (qc + qr + qs) > SMALL
     qc_big = qc > SMALL
@@ -202,13 +197,12 @@ def _sediment_substep(q, fall_dist, rho, dz):
 
 
 def _sediment_species(q, qv, temperature, pressure, rho, dz, dt,
-                      fall_rate, evap_rate_base, l_heat, use_pallas=False):
+                      fall_rate, evap_rate_base, l_heat):
     """CFL-substepped sedimentation + inter-substep evaporation for one
     species (mp_simple.f90:507-564). Per-column substep counts follow the
     reference's per-column CFL; columns finish early via masking.
 
     Returns (q, qv, temperature, accumulated_surface_precip)."""
-    del use_pallas   # jnp reference path; the TPU kernel fuses the scheme
     # per-column cfl count: ceil(max_k dt*v/dz)  (mp_simple.f90:511)
     cfl = jnp.ceil(jnp.max(dt / dz * fall_rate, axis=0))          # (ny, nx)
     n_max = jnp.max(cfl).astype(jnp.int32)
@@ -241,32 +235,38 @@ def _sediment_species(q, qv, temperature, pressure, rho, dz, dt,
 
 
 def mp_simple(pressure, theta, exner, rho, qv, qc, qr, qs, rain, snow,
-              dt, dz, use_pallas=True):
+              dt, dz, mesh=None, interpret=False):
     """Full scheme driver (mp_simple_driver, mp_simple.f90:595-646).
 
     All 3D args are (z, y, x); rain/snow are (y, x) accumulators [mm].
     Returns updated (theta, qv, qc, qr, qs, rain, snow).
 
-    On TPU the ENTIRE scheme dispatches to one fused Pallas kernel
-    (ops/pallas_kernels.mp_simple_tpu): the scheme is column-local, so the
-    saturation loop, conversions, and both sedimentation fall loops run
-    with each column batch resident in VMEM — 11 field reads + 7 writes
-    per call instead of ~30 HBM passes. The jnp path below is the
-    reference implementation (CPU tests and sharded global-view runs)."""
+    On the GPU the whole scheme runs as one column-local kernel
+    (ops/sb04_kernel.py), per shard under ``mesh``. Every other backend
+    runs ``mp_simple_jnp``, the reference (GSPMD partitions it under a
+    mesh). ``interpret=True`` runs the kernel through the Pallas
+    interpreter on any backend; only tests pass it."""
+    from ..core.state import compute_device
+    device = mesh.devices.flat[0] if mesh is not None else compute_device()
+    args = (pressure, theta, exner, rho, qv, qc, qr, qs, rain, snow, dt, dz)
+    if device.platform != "gpu" and not interpret:
+        return mp_simple_jnp(*args)
+    from ..ops import sb04_kernel
+    if mesh is None:
+        return sb04_kernel.mp_simple(*args, interpret=interpret)
+    return sb04_kernel.mp_simple_sharded(mesh, *args, interpret=interpret)
+
+
+def mp_simple_jnp(pressure, theta, exner, rho, qv, qc, qr, qs, rain, snow,
+                  dt, dz):
+    """The scheme in plain jnp: the reference implementation, and the
+    path of every backend but the GPU."""
     cloud2snow = jnp.exp(-SNOW_FORMATION_TC * dt)
     cloud2rain = jnp.exp(-RAIN_FORMATION_TC * dt)
 
-    if use_pallas and qv.ndim == 3:
-        from ..ops import pallas_kernels as pk
-        if pk.kernels_available():
-            return pk.mp_simple_tpu(pressure, theta, exner, rho, qv, qc,
-                                    qr, qs, rain, snow, dt, dz,
-                                    cloud2rain, cloud2snow)
-
     temperature = theta * exner
     temperature, qv, qc, qr, qs = mp_conversions(
-        pressure, temperature, qv, qc, qr, qs, dt, cloud2rain, cloud2snow,
-        use_pallas=False)
+        pressure, temperature, qv, qc, qr, qs, dt, cloud2rain, cloud2snow)
 
     def l_evap_fn(t):
         return -(LH_VAPOR + (373.15 - t) * DLHVDT)

@@ -103,8 +103,7 @@ def _nint(x):
 def _filldown(vt, present):
     """vt(k) = vt(k) if species present else value from the level above
     (reference's vtxk(k)=vtxk(k+1) top-down carry). Unrolled over the
-    (static, small) z extent instead of lax.scan so the identical code
-    also lowers inside the Mosaic Thompson kernel; the where-chain is
+    (static, small) z extent instead of lax.scan; the where-chain is
     bit-identical to the scan."""
     nz = vt.shape[0]
     acc = jnp.zeros_like(vt[:1])
@@ -116,9 +115,9 @@ def _filldown(vt, present):
 
 
 def _cummin_rev(x):
-    """Reverse (top-down) cumulative minimum over axis 0 — an unrolled,
-    Mosaic-compatible replacement for lax.cummin(axis=0, reverse=True);
-    min chains are exact so the result is bit-identical."""
+    """Reverse (top-down) cumulative minimum over axis 0 — an unrolled
+    replacement for lax.cummin(axis=0, reverse=True); min chains are
+    exact so the result is bit-identical."""
     nz = x.shape[0]
     acc = x[nz - 1:nz]
     rows = [acc]
@@ -133,10 +132,8 @@ def _sediment(rx, nx_, vt_m, vt_n, rho, dz, DT, with_number,
     """Explicit flux-form sedimentation with per-column substepping
     (mp_thompson.f90:2657-2780). Returns updated (rx, nx_, qten_sed,
     nten_sed, surface_flux_sum [kg/m^2] with a leading singleton level
-    axis). Shape-generic over the trailing dims (full (nz, ny, nx) grid
-    on the jnp path; one (nz, tc) VMEM tile inside the Pallas kernel):
-    all reductions keep dims, so no rank changes — bit-identical to the
-    squeezed formulation."""
+    axis). All reductions keep dims, so no rank changes — bit-identical
+    to the squeezed formulation."""
     if vt_for_cfl is None:
         vt_for_cfl = jnp.maximum(vt_m, vt_n) if with_number else vt_m
     per_k = jnp.where(vt_for_cfl > 1e-3,
@@ -233,12 +230,10 @@ def _rain_nr_from_mvd(rr, mvd, c):
 
 
 # lookup-table groups sharing an index tuple; each group becomes ONE
-# XLA gather (or one pair of one-hot matmuls for the small 2D tables).
-# On TPU a fancy-index gather costs ~per-index-vector, not per-byte
-# (~24 ms for ONE 4D gather over a 300x300x20 grid on v5e vs ~25 ms for
-# 12 tables stacked along a leading axis), so grouping the reference's
-# per-table reads (qr_acr_qs / qr_acr_qg / freezeH2O / qi_aut_qs,
-# mp_thompson.f90:1700-1955) is an order-of-magnitude win.
+# XLA gather (or one pair of one-hot matmuls for the small 2D tables):
+# one index computation and one gather serve every table of the group
+# (the reference reads each table separately: qr_acr_qs / qr_acr_qg /
+# freezeH2O / qi_aut_qs, mp_thompson.f90:1700-1955).
 _RACS_NAMES = ("tcs_racs1", "tcs_racs2", "tmr_racs1", "tmr_racs2",
                "tcr_sacr1", "tcr_sacr2", "tms_sacr1", "tms_sacr2",
                "tnr_racs1", "tnr_racs2", "tnr_sacr1", "tnr_sacr2")
@@ -253,10 +248,8 @@ def _prep_tables(params):
     """get_tables + pre-stacked numpy groups (built once per parameter
     set, outside any trace so nothing is constant-folded at compile).
 
-    The three big gather stacks are stored BFLOAT16: a TPU gather's cost
-    is dominated by random-access latency into the table, and a stack
-    that fits the gather loop's 16 MB scoped-VMEM staging runs ~2.3x
-    faster (racs 26->11 ms/substep at 500^2x20, measured). bf16
+    The three big gather stacks are stored BFLOAT16, halving the bytes a
+    random-access gather touches. bf16
     quantization (<=0.4% relative) of the frozen-process collection/
     freezing rate tables is a deliberate, documented storage-precision
     divergence from the reference's f32 tables: the warm-rain
@@ -280,28 +273,21 @@ def _prep_tables(params):
     return _PREP_CACHE[key]
 
 
-def _take_tables(T, names, idxs, dtype, stk):
-    """One stacked flat gather serving every table in a group. Returns
-    ({name: values} shaped like the index arrays, the stacked (N, ...)
-    gather output itself — handed to the Pallas core kernel as one
-    operand so no restack copy is paid). The stack keeps the table's
-    storage dtype (bfloat16 for the big groups): the kernel converts
-    per tile in VMEM, so the f32 copy never materializes in HBM; the
-    jnp path's dict entries are converted here (dead code under the
-    kernel path)."""
+def _take_tables(T, names, idxs, stk):
+    """One stacked flat gather serving every table in a group: the
+    stacked (N, ...) gather output, in the table's storage dtype
+    (bfloat16 for the big groups)."""
     dims = T[names[0]].shape
     lin = idxs[0]
     for d, ix in zip(dims[1:], idxs[1:]):
         lin = lin * d + ix
-    vals = jnp.take(jnp.asarray(T[stk]), lin, axis=1)
-    vals_f = vals.astype(dtype)
-    return {n: vals_f[i] for i, n in enumerate(names)}, vals
+    return jnp.take(jnp.asarray(T[stk]), lin, axis=1)
 
 
 def _onehot_tables(T, names, ia, ib, dtype, stk):
-    """Exact 2D table lookup as two one-hot contractions on the MXU
-    (~7x faster than a gather for these small tables; bit-exact because
-    each output is 1.0*value + exact zeros under HIGHEST precision)."""
+    """Exact 2D table lookup as two one-hot contractions (bit-exact
+    because each output is 1.0*value + exact zeros under HIGHEST
+    precision, which also keeps the contraction out of TF32)."""
     tab = jnp.asarray(T[stk])                 # (NT, A, B)
     nt, a_dim, b_dim = tab.shape
     sh = ia.shape
@@ -403,15 +389,7 @@ def _ice_koop(temp, qv, qvs, nwfa, dt):
 #
 # The scheme runs as prep -> table indices -> table lookups -> core
 # (rates / conservation / tau+1 update / condensation / rain evap /
-# terminal velocities) -> sedimentation -> final update. The elementwise
-# blocks (_prep_block, _core_block) are shared VERBATIM by the jnp
-# reference path and the fused Pallas TPU kernel
-# (ops/thompson_kernel.py): the kernel recomputes prep per tile in VMEM
-# and receives every table value pre-gathered, so its HBM traffic is one
-# read of the primaries + gathered table values and one write of the core
-# outputs — replacing the fusion-tuple materialization the monolithic
-# formulation paid (~17 GB/substep of tuple results at 500^2x20,
-# docs/perf_roofline.md).
+# terminal velocities) -> sedimentation -> final update.
 # ---------------------------------------------------------------------------
 
 
@@ -553,9 +531,7 @@ def _prep_block(th, qv1d, qc1d, qi1d, qr1d, qs1d, qg1d, ni1d, nr1d,
 
 def _small_indices(P, c):
     """Bin indices for the small 2D tables (collision efficiencies,
-    cloud-water freezing, ice autoconversion/deposition). Shared by
-    _index_block (jnp path: XLA one-hot lookups) and the Pallas kernel's
-    in-VMEM one-hot lookups (ops/thompson_kernel._small_lookup_tile)."""
+    cloud-water freezing, ice autoconversion/deposition)."""
     rc, ri, ni, tempc = P["rc"], P["ri"], P["ni"], P["tempc"]
     idx_tc = jnp.clip(_nint(-tempc), 1, 45) - 1
     idx_c = jnp.where(rc > tt.r_c[0], _mantissa_idx(rc, c.nic2, NTB_C), 0)
@@ -578,8 +554,7 @@ def _small_indices(P, c):
 def _index_block(P, c):
     """Lookup-table bin indices (mp_thompson.f90:1560-1736): decimal
     mantissa bins for the mixing-ratio tables, temperature bins, and the
-    log-spaced collision-efficiency bins. Consumed by _gather_all (the
-    XLA gather/one-hot stage — always outside the Pallas kernel)."""
+    log-spaced collision-efficiency bins. Consumed by _gather_all."""
     rr, nr = P["rr"], P["nr"]
     rs, rg, tempc = P["rs"], P["rg"], P["tempc"]
     ilamr, ilamg = P["ilamr"], P["ilamg"]
@@ -604,24 +579,16 @@ def _index_block(P, c):
                 idx_g=idx_g, idx_g1=idx_g1, **_small_indices(P, c))
 
 
-# every table value the core consumes, in the kernel's stacked-operand
-# order: the three big gather groups plus the 2D one-hot lookups
-_SMALL_NAMES = ("t_Efrw", "t_Efsw", "tpi_qcfz", "tni_qcfz", "tpi_ide",
-                "tps_iaus", "tni_iaus")
-
-
 def _gated_take(pred, T, names, idxs, dtype, stk):
     """_take_tables behind a whole-domain presence predicate: when no
     cell can consume a group's values (every rate that reads them is
-    masked off everywhere), skip the gather entirely — a 500^2x20
-    stacked take costs ~11-17 ms on v5e REGARDLESS of the values
-    fetched (random-access latency, not bandwidth). This is the
+    masked off everywhere), skip the gather entirely. This is the
     reference's per-column L_qr/L_qg/temperature guards
     (mp_thompson.f90:1764,1789) lifted to domain granularity; e.g. the
     ideal-ridge regime produces zero graupel, so the rain-graupel
     collection gather never needs to run."""
     def do(_):
-        return _take_tables(T, names, idxs, dtype, stk)[1]
+        return _take_tables(T, names, idxs, stk)
 
     def zero(_):
         tab = T[stk]
@@ -630,19 +597,14 @@ def _gated_take(pred, T, names, idxs, dtype, stk):
 
     stkv = jax.lax.cond(pred, do, zero, None)
     vals_f = stkv.astype(dtype)
-    return {n: vals_f[i] for i, n in enumerate(names)}, stkv
+    return {n: vals_f[i] for i, n in enumerate(names)}
 
 
-def _gather_all(T, I, dtype, smalls=True, P=None):
-    """All table lookups (XLA stage, between the index block and the
-    core): three stacked flat gathers for the 4D/3D tables and exact
-    one-hot MXU contractions for the small 2D tables. Returns
-    ({table_name: looked-up field}, {group: stacked gather output} —
-    the stacks feed the Pallas core kernel directly). With smalls=False
-    the 2D-table one-hots are skipped entirely (the kernel path does
-    them per tile in VMEM — at full grid the XLA one-hots stream
-    multi-GB (n_cells, n_bins) intermediates through HBM). ``P`` (the
-    prep dict) enables the whole-domain gather gates (_gated_take):
+def _gather_all(T, I, dtype, P=None):
+    """All table lookups (between the index block and the core): three
+    stacked flat gathers for the 4D/3D tables and exact one-hot
+    contractions for the small 2D tables. Returns {table_name:
+    looked-up field}. ``P`` (the prep dict) enables the whole-domain gather gates (_gated_take):
     racs needs rain+snow coexisting (rs_on, _core_block:819), racg
     rain+graupel (rg_on, :850), qrfz supercooled rain (cold & frz_tab,
     :862-875; the tempc < 0.5 margin makes the predicate a strict
@@ -654,48 +616,39 @@ def _gather_all(T, I, dtype, smalls=True, P=None):
         any_rfz = jnp.any((rr > tt.r_r[0]) & (P["tempc"] < 0.5))
     else:
         any_rs = any_rg = any_rfz = jnp.bool_(True)
-    RS, rs_stk = _gated_take(
+    RS = _gated_take(
         any_rs, T, _RACS_NAMES,
         (I["idx_s"], I["idx_t"], I["idx_r1"], I["idx_r"]),
         dtype, "_stk_racs")
-    GG, gg_stk = _gated_take(
+    GG = _gated_take(
         any_rg, T, _RACG_NAMES,
         (I["idx_g1"], I["idx_g"], I["idx_r1"], I["idx_r"]),
         dtype, "_stk_racg")
-    QF, qf_stk = _gated_take(
+    QF = _gated_take(
         any_rfz, T, _QRFZ_NAMES,
         (I["idx_r"], I["idx_r1"], I["idx_tc"]),
         dtype, "_stk_qrfz")
     G = {**RS, **GG, **QF}
-    if smalls:
-        G.update(_onehot_tables(T, ("t_Efrw",), I["idx_efr"],
-                                I["idx_efc"], dtype, "_stk_efrw"))
-        G.update(_onehot_tables(T, ("t_Efsw",), I["idx_efs"],
-                                I["idx_efc"], dtype, "_stk_efsw"))
-        G.update(_onehot_tables(T, _QCFZ_NAMES, I["idx_c"], I["idx_tc"],
-                                dtype, "_stk_qcfz"))
-        G.update(_onehot_tables(T, _IAUS_NAMES, I["idx_i"], I["idx_i1"],
-                                dtype, "_stk_iaus"))
-    return G, dict(racs=rs_stk, racg=gg_stk, qrfz=qf_stk)
+    G.update(_onehot_tables(T, ("t_Efrw",), I["idx_efr"], I["idx_efc"],
+                            dtype, "_stk_efrw"))
+    G.update(_onehot_tables(T, ("t_Efsw",), I["idx_efs"], I["idx_efc"],
+                            dtype, "_stk_efsw"))
+    G.update(_onehot_tables(T, _QCFZ_NAMES, I["idx_c"], I["idx_tc"],
+                            dtype, "_stk_qcfz"))
+    G.update(_onehot_tables(T, _IAUS_NAMES, I["idx_i"], I["idx_i1"],
+                            dtype, "_stk_iaus"))
+    return G
 
 
-def _core_block(P, idx_i, G, DT, c, pp, tnc_wev_flat=None,
-                small_lookup=None):
+def _core_block(P, idx_i, G, DT, c, pp, tnc_wev_flat=None):
     """Process rates, conservation scalings, tendencies, the TAU+1
     update, cloud condensation/evaporation, rain evaporation and terminal
     velocities (mp_thompson.f90:1496-2655) — everything between the table
-    lookups and sedimentation. Pure elementwise math on whatever array
-    shape P holds (full grid on the jnp reference path; one VMEM tile
-    inside the Pallas TPU kernel, ops/thompson_kernel.py). ``G`` maps
-    table names to pre-gathered values; ``idx_i`` is the ice bin index
-    (the one table index the rate logic itself consumes, for the
-    large-ice autoconversion branch). ``small_lookup`` overrides where
-    the 7 small-table values come from: None reads them pre-looked-up
-    from G (the jnp path); the Pallas kernel passes its in-VMEM one-hot
-    lookup closure (ops/thompson_kernel) so those values never touch
-    HBM."""
+    lookups and sedimentation. Pure elementwise math on the grid. ``G``
+    maps table names to pre-gathered values; ``idx_i`` is the ice bin
+    index (the one table index the rate logic itself consumes, for the
+    large-ice autoconversion branch)."""
     aer = "ncr" in P
-    SL = G if small_lookup is None else small_lookup(P, c)
     odt = 1.0 / DT
     odts = odt
     dtype = P["t1d"].dtype
@@ -748,8 +701,8 @@ def _core_block(P, idx_i, G, DT, c, pp, tnc_wev_flat=None,
     else:
         pnr_wau = prr_wau / (AM_R * c.mu_c * D0R ** 3)
 
-    # rain collecting cloud water (collision efficiency looked up by SL)
-    Ef_rw = SL["t_Efrw"]
+    # rain collecting cloud water (collision efficiency looked up by G)
+    Ef_rw = G["t_Efrw"]
     rcw_on = L_qc & L_qr & (mvd_r > D0R) & (mvd_c > D0C)
     prr_rcw = jnp.where(
         rcw_on,
@@ -799,7 +752,7 @@ def _core_block(P, idx_i, G, DT, c, pp, tnc_wev_flat=None,
 
     # snow/graupel collecting cloud water (mp_thompson.f90:1705-1736)
     xDs = P["xDs"]
-    Ef_sw = SL["t_Efsw"]
+    Ef_sw = G["t_Efsw"]
     scw_on = L_qc & (mvd_c > D0C) & (xDs > D0S)
     prs_scw = jnp.where(scw_on, rhof * c.t1_qs_qc * Ef_sw * rc * smoe, 0.0)
 
@@ -913,7 +866,7 @@ def _core_block(P, idx_i, G, DT, c, pp, tnc_wev_flat=None,
         jnp.where(cold & (rr > R1) & (temp < HGFR), nr * odts, 0.0))
 
     wfz_tab = rc > tt.r_c[0]
-    CF = SL
+    CF = G
     pri_wfz = jnp.where(
         cold, jnp.where(wfz_tab,
                         jnp.minimum(rc * odts, CF["tpi_qcfz"] * odts),
@@ -966,7 +919,7 @@ def _core_block(P, idx_i, G, DT, c, pp, tnc_wev_flat=None,
     oxmi = 1.0 / xmi
     ide_raw = C_CUBE * t1_subl * diffu * ssati * rvs \
         * c.oig1 * c.cig[4] * ni * ilami
-    II = SL
+    II = G
     tpi_ide = II["tpi_ide"]
     ide_on = cold & L_qi
     pri_ide_neg = jnp.maximum(jnp.maximum(-ri * odts, ide_raw), rate_max_i)
@@ -1454,7 +1407,7 @@ def _core_block(P, idx_i, G, DT, c, pp, tnc_wev_flat=None,
     return O
 
 
-# the core outputs, in the Pallas kernel's stacked-output order
+# the core outputs _post_block reads
 _O_NAMES = ("rr", "nr", "ri", "ni", "rs", "rg", "vtrk", "vtnrk", "vtik",
             "vtnik", "vtsk", "vtgk", "rho", "ocp", "lvap", "tten",
             "qvten", "qcten", "qiten", "niten", "qrten", "nrten",
@@ -1464,10 +1417,7 @@ _O_NAMES = ("rr", "nr", "ri", "ni", "rs", "rg", "vtrk", "vtnrk", "vtik",
 def _post_block(P, O, dzq, DT, c, pp):
     """Sedimentation, (aer) drizzle settling, instant melt /
     homogeneous freeze, and the final update
-    (mp_thompson.f90:2657-2844). Shared verbatim by the jnp path and
-    the Pallas kernel (which runs it in-VMEM right after _core_block,
-    so the four sedimentation while-loops — measured ~14 GB/substep of
-    XLA loop-carry traffic at bench scale — never touch HBM).
+    (mp_thompson.f90:2657-2844).
     Returns (th, qv, qc, qi, qr, qs, qg, ni, nr[, nc, nwfa, nifa],
     ppt_rain, ppt_ice, ppt_snow, ppt_graupel); the ppt fields keep a
     leading singleton level axis (callers squeeze/slice it)."""
@@ -1629,31 +1579,13 @@ def _post_block(P, O, dzq, DT, c, pp):
             ppt_rain, ppt_ice, ppt_snow, ppt_graupel)
 
 
-def _kernel_mode(use_pallas: bool):
-    """Which Pallas mode the core runs in: "compiled" on TPU backends,
-    "interpret" when tests force interpret mode (so the CPU suite
-    exercises the exact kernel body), else None (jnp reference)."""
-    if not use_pallas:
-        return None
-    from ..ops import pallas_kernels as pk
-    if not pk._HAS_PALLAS:
-        return None
-    if pk._INTERPRET:
-        return "interpret"
-    if pk.tpu_backend():
-        return "compiled"
-    return None
-
-
-@functools.partial(jax.jit, static_argnames=("params_key", "kernel_mode"))
+@functools.partial(jax.jit, static_argnames=("params_key",))
 def _mp_thompson_impl(th, qv1d, qc1d, qi1d, qr1d, qs1d, qg1d, ni1d, nr1d,
                       exner, p1d, dzq, dt, tables, params_key,
                       nc1d=None, nwfa1d=None, nifa1d=None, w1d=None,
-                      tnc_wev_flat=None, kernel_mode=None):
-    """One Thompson step: prep -> indices -> table lookups -> core
-    (fused Pallas kernel when kernel_mode is set and the run is not
-    aerosol-aware; the jnp reference otherwise) -> sedimentation ->
-    final update (mp_thompson.f90:1057-2844)."""
+                      tnc_wev_flat=None):
+    """One Thompson step: prep -> indices -> table lookups -> core ->
+    sedimentation -> final update (mp_thompson.f90:1057-2844)."""
     params = ThompsonParams(**dict(params_key))
     _, c = get_tables(params)
     pp = params
@@ -1669,22 +1601,7 @@ def _mp_thompson_impl(th, qv1d, qc1d, qi1d, qr1d, qs1d, qg1d, ni1d, nr1d,
                     exner, p1d, c, pp, nc1d=nc1d, nwfa1d=nwfa1d,
                     nifa1d=nifa1d, w1d=w1d)
     I = _index_block(P, c)
-    use_kernel = kernel_mode is not None and not aer
-    G, stacks = _gather_all(tables, I, dtype, smalls=not use_kernel,
-                            P=P)
-
-    if use_kernel:
-        # the kernel runs core + post (sedimentation + final) fused and
-        # returns the finished fields directly (stack-order identity here;
-        # interval callers use mp_thompson_stack to avoid the restack)
-        from ..ops.thompson_kernel import thompson_core_call
-        qstack = jnp.stack([th, qv1d, qc1d, qi1d, qr1d, qs1d, qg1d,
-                            ni1d, nr1d])
-        out_stack, pr, pi, ps, pg = thompson_core_call(
-            qstack, tuple(range(9)), exner, p1d, dzq, stacks, dt,
-            params_key, interpret=(kernel_mode == "interpret"))
-        return tuple(out_stack[j] for j in range(9)) + (pr, pi, ps, pg)
-
+    G = _gather_all(tables, I, dtype, P=P)
     O = _core_block(P, I["idx_i"], G, DT, c, pp,
                     tnc_wev_flat=tnc_wev_flat)
     outs = _post_block(P, O, dzq, DT, c, pp)
@@ -1703,13 +1620,10 @@ def _mp_thompson_impl(th, qv1d, qc1d, qi1d, qr1d, qs1d, qg1d, ni1d, nr1d,
 
 
 def mp_thompson(th, qv, qc, qi, qr, qs_, qg, ni, nr, exner, p, dz, dt,
-                rain, snow, graupel, params: ThompsonParams = None,
-                use_pallas=True):
+                rain, snow, graupel, params: ThompsonParams = None):
     """One Thompson step over the full grid (mp_gt_driver,
     mp_thompson.f90:772-1044). rain/snow/graupel are (y, x) accumulators
-    [mm]; ni/nr are number mixing ratios [kg^-1]. ``use_pallas`` gates
-    the fused TPU core kernel (single-device only — sharded callers pass
-    False, like mp_simple).
+    [mm]; ni/nr are number mixing ratios [kg^-1].
 
     Returns (th, qv, qc, qi, qr, qs, qg, ni, nr, rain, snow, graupel)."""
     params = params or ThompsonParams()
@@ -1718,8 +1632,7 @@ def mp_thompson(th, qv, qc, qi, qr, qs_, qg, ni, nr, exner, p, dz, dt,
     (th, qv, qc, qi, qr, qs_, qg, ni, nr,
      ppt_rain, ppt_ice, ppt_snow, ppt_graupel) = _mp_thompson_impl(
         th, qv, qc, qi, qr, qs_, qg, ni, nr, exner, p, dz,
-        jnp.asarray(dt, th.dtype), tables, key,
-        kernel_mode=_kernel_mode(use_pallas))
+        jnp.asarray(dt, th.dtype), tables, key)
     rain = rain + ppt_rain + ppt_snow + ppt_graupel + ppt_ice
     snow = snow + ppt_snow + ppt_ice
     graupel = graupel + ppt_graupel
@@ -1746,10 +1659,9 @@ def stack_smap(names):
     return tuple(smap)
 
 
-@functools.partial(jax.jit,
-                   static_argnames=("params_key", "smap", "kernel_mode"))
+@functools.partial(jax.jit, static_argnames=("params_key", "smap"))
 def _mp_thompson_stack_impl(qstack, exner, p1d, dzq, dt, tables,
-                            params_key, smap, kernel_mode):
+                            params_key, smap):
     """Stack-native Thompson step: the advected-species stack goes in and
     comes out in STACK order, so the interval loop's carry feeds the
     scheme (and the scheme feeds advection) with zero restacking. The
@@ -1762,15 +1674,7 @@ def _mp_thompson_stack_impl(qstack, exner, p1d, dzq, dt, tables,
     P = _prep_block(th, qv1d, qc1d, qi1d, qr1d, qs1d, qg1d, ni1d, nr1d,
                     exner, p1d, c, params)
     I = _index_block(P, c)
-    use_kernel = kernel_mode is not None
-    G, stacks = _gather_all(tables, I, dtype, smalls=not use_kernel,
-                            P=P)
-    if use_kernel:
-        from ..ops.thompson_kernel import thompson_core_call
-        out_stack, pr, pi, ps, pg = thompson_core_call(
-            qstack, smap, exner, p1d, dzq, stacks, dt, params_key,
-            interpret=(kernel_mode == "interpret"))
-        return out_stack, pr, pi, ps, pg
+    G = _gather_all(tables, I, dtype, P=P)
     O = _core_block(P, I["idx_i"], G, dt, c, params)
     outs = _post_block(P, O, dzq, dt, c, params)
     inv = [0] * 9
@@ -1781,8 +1685,7 @@ def _mp_thompson_stack_impl(qstack, exner, p1d, dzq, dt, tables,
 
 
 def mp_thompson_stack(qstack, names, exner, p, dz, dt, rain, snow,
-                      graupel, params: ThompsonParams = None,
-                      use_pallas=True):
+                      graupel, params: ThompsonParams = None):
     """One Thompson step on the advected-species stack (stack order given
     by ``names``; must be exactly the 9 Thompson species — use
     ``stack_smap`` to validate). Returns (out_stack, rain, snow,
@@ -1795,7 +1698,7 @@ def mp_thompson_stack(qstack, names, exner, p, dz, dt, rain, snow,
     out_stack, ppt_rain, ppt_ice, ppt_snow, ppt_graupel = \
         _mp_thompson_stack_impl(
             qstack, exner, p, dz, jnp.asarray(dt, qstack.dtype), tables,
-            key, smap, _kernel_mode(use_pallas))
+            key, smap)
     rain = rain + ppt_rain + ppt_snow + ppt_graupel + ppt_ice
     snow = snow + ppt_snow + ppt_ice
     graupel = graupel + ppt_graupel

@@ -1,4 +1,4 @@
-"""NoahMP land-surface model (lsm=4), TPU-native rewrite.
+"""NoahMP land-surface model (lsm=4), a JAX rewrite.
 
 Re-implementation of MODULE_SF_NOAHMPLSM
 (/root/reference/src/physics/lsm_noahmplsm.f90, ~11k lines of per-column

@@ -1,4 +1,4 @@
-"""RRTMG shortwave radiation (rad=3, use_simple_sw=false), TPU-native.
+"""RRTMG shortwave radiation (rad=3, use_simple_sw=false), in JAX.
 
 Re-implementation of rrtmg_sw (/root/reference/src/physics/ra_rrtmg_sw.f90,
 AER's RRTMG-SW v3.7 as carried by WRF/ICAR): correlated-k gas optics over
@@ -11,7 +11,8 @@ Differences from the reference, all deliberate:
     and g-point loop all become array axes; the two vertical adding scans
     are lax.scan;
   * exp() is evaluated directly instead of the exp_tbl lookup table
-    (a scalar-CPU optimization; the tables costs more than exp on TPU);
+    (a scalar-CPU optimization; a table lookup costs more than exp on a
+    vector machine);
   * out-of-range effective radii are CLIPPED into the table range where
     the reference `error stop`s (cldprmc_sw radius bounds).  This is not
     academic: the wrapper forces re_snow=500 um whenever mp_options /= 5

@@ -1,4 +1,4 @@
-"""CLM4.5 shallow-lake model (water=3), TPU-native rewrite.
+"""CLM4.5 shallow-lake model (water=3), a JAX rewrite.
 
 Re-implementation of /root/reference/src/physics/water_lake.f90 (the WRF/CLM
 lake scheme of Subin et al. 2012 / Gu et al. 2013 as adapted for ICAR):

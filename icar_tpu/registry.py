@@ -5,10 +5,9 @@ One table replaces three reference subsystems:
   * per-package ``*_var_request`` calls (/root/reference/src/main/options_obj.f90:95-229)
   * CF output metadata (/root/reference/src/io/default_output_metadata.f90)
 
-Array layout convention for the TPU rebuild: 3D fields are ``(z, y, x)`` —
-x is the fastest (128-lane) dimension, (y, x) are the large tiled dims that
-map onto the 8x128 VPU registers, z stays unsharded (column physics is
-z-local, SURVEY.md section 5).  The reference uses Fortran (i, k, j) =
+Array layout convention: 3D fields are ``(z, y, x)`` — x is the fastest
+dimension, (y, x) are the large dims the mesh shards, z stays unsharded
+(column physics is z-local, SURVEY.md section 5).  The reference uses Fortran (i, k, j) =
 (x, z, y) with x fastest; both put x innermost in memory.
 
 Staggering: 'x' means nx+1 points (u grid), 'y' means ny+1 (v grid),

@@ -1,6 +1,6 @@
 """Namelist-version tracking: per-release option-file changes.
 
-TPU-native equivalent of the reference's ``model_tracking`` module
+The counterpart of the reference's ``model_tracking`` module
 (src/main/model_tracking.f90:19-123) and ``version_check``
 (src/objects/options_obj.f90:280-310): when an options file declares a
 namelist version that does not match the running model, the run stops

@@ -105,8 +105,7 @@ def test_one_substep_matches_composed_oracle(pbl):
             jnp.asarray(r.uniform(-1e-7, 1e-7, shp), jnp.float32),
     }
     dt = 4.0   # below the CFL dt, so end_time==dt gives ONE substep
-    fn = make_step_fn(m.options, m.geom, m.advect_names, True,
-                      fast_path=False)
+    fn = make_step_fn(m.options, m.geom, m.advect_names, True)
     state_in = {k: jnp.array(v) for k, v in m.state.items()}  # donated
     out, t, n = fn(state_in, dqdt, jnp.float32(0.0), jnp.float32(dt),
                    m._time_aux(), m.geom_args())
@@ -126,30 +125,6 @@ def test_one_substep_matches_composed_oracle(pbl):
     np.testing.assert_allclose(np.asarray(out["precipitation"]), rain,
                                rtol=1e-4, atol=1e-6,
                                err_msg="precipitation after one substep")
-
-
-def test_one_substep_fast_path_matches_composed_oracle():
-    """The padded-stack fast path preserves the same operator order."""
-    from icar_tpu.ops import pallas_kernels as pk
-
-    m = _model(C.PBL_NONE)
-    dt = 4.0
-    prev = pk.force_interpret(True)
-    try:
-        fn = make_step_fn(m.options, m.geom, m.advect_names, False,
-                          fast_path=True)
-        state_in = {k: jnp.array(v) for k, v in m.state.items()}
-        out, t, n = fn(state_in, {}, jnp.float32(0.0), jnp.float32(dt),
-                       m._time_aux(), m.geom_args())
-    finally:
-        pk.force_interpret(prev)
-    assert int(n) == 1
-    want, rain, snow = _one_substep_oracle(m, {}, np.float32(dt))
-    for k, w in want.items():
-        atol = 1e-4 if k == "potential_temperature" else 1e-5
-        np.testing.assert_allclose(
-            np.asarray(out[k]), w, rtol=1e-3, atol=atol,
-            err_msg=f"fast-path substep mismatch in {k}")
 
 
 def _one_substep_oracle_full(m, dqdt, dt, adv_fn, order_swap=False):
@@ -318,8 +293,7 @@ def test_full_sequence_matches_composed_oracle(advname):
             "water_vapor":
             jnp.asarray(r.uniform(-1e-7, 1e-7, shp), jnp.float32)}
     dt = 20.0
-    fn = make_step_fn(m.options, m.geom, m.advect_names, True,
-                      fast_path=False)
+    fn = make_step_fn(m.options, m.geom, m.advect_names, True)
     state_in = {k: jnp.array(v) for k, v in m.state.items()}
     out, t, n = fn(state_in, dqdt, jnp.float32(0.0), jnp.float32(dt),
                    m._time_aux(), m.geom_args())
@@ -348,8 +322,7 @@ def test_full_sequence_matches_composed_oracle(advname):
             jnp.asarray(m.geom.jacobian, np.float32), None,
             jnp.asarray(m.geom.advection_dz, np.float32),
             order=m.options.adv.mpdata_order,
-            use_fct=m.options.adv.flux_corrected_transport,
-            use_pallas=False)
+            use_fct=m.options.adv.flux_corrected_transport)
         return {k: np.asarray(outq[i]) for i, k in enumerate(names)}
 
     want, precip = _one_substep_oracle_full(m, dqdt, np.float32(dt),

@@ -1,4 +1,4 @@
-"""End-to-end ideal-ridge run: the TPU equivalent of the reference CI test
+"""End-to-end ideal-ridge run: the counterpart of the reference CI test
 (tests/gen_ideal_test.py + execute_test_run) and test_caf_no_forcing.f90."""
 
 import jax.numpy as jnp

@@ -56,11 +56,11 @@ def test_mp_simple_matches_scalar_oracle(seed, dt):
     from icar_tpu.physics import mp_simple
 
     p, theta, exner, rho, qv, qc, qr, qs, rain, snow, dz = _mp_inputs(seed)
-    got = mp_simple.mp_simple(
+    got = mp_simple.mp_simple_jnp(
         jnp.asarray(p), jnp.asarray(theta), jnp.asarray(exner),
         jnp.asarray(rho), jnp.asarray(qv), jnp.asarray(qc), jnp.asarray(qr),
         jnp.asarray(qs), jnp.asarray(rain), jnp.asarray(snow),
-        np.float32(dt), jnp.asarray(dz), use_pallas=False)
+        np.float32(dt), jnp.asarray(dz))
     want = mp_simple_ref.mp_simple_driver(
         p, theta, exner, rho, qv, qc, qr, qs, rain, snow, dt, dz)
     names = ("theta", "qv", "qc", "qr", "qs", "rain", "snow")
@@ -105,7 +105,7 @@ def test_advect_upwind_matches_slice_oracle(seed, advect_density):
         jnp.asarray(q), jnp.asarray(u), jnp.asarray(v), jnp.asarray(w),
         dt, dx, jnp.asarray(jaco_u), jnp.asarray(jaco_v),
         jnp.asarray(jaco_w), jnp.asarray(jaco), jnp.asarray(rho),
-        jnp.asarray(dz), advect_density, use_pallas=False)
+        jnp.asarray(dz), advect_density)
     U_m, V_m, W_m = advect_ref.setup_module_winds(
         u, v, w, dx, dt, jaco_u, jaco_v, jaco_w, rho, advect_density)
     for s in range(q.shape[0]):

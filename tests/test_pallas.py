@@ -1,33 +1,30 @@
-"""Pallas kernel equivalence in CI (VERDICT r1 item #2).
+"""The SB04 GPU kernel (ops/sb04_kernel.py) against the jnp reference.
 
-The three TPU kernels (saturation adjustment, fused advection,
-sedimentation) dispatch only on TPU in production; here they run through
-``pallas_call(..., interpret=True)`` on CPU and are asserted equivalent
-to the jnp reference paths they replace within a few float32 ulp (XLA's
-FMA contraction can differ between the two compilations, so exact bit
-equality is not guaranteed; observed differences are <= 1 ulp on isolated
-cells).
+The kernel is compiled only for the GPU; here it runs through the Pallas
+interpreter (``interpret=True``) and is compared with the jnp scheme
+(physics/mp_simple.py) it replaces. The per-cell arithmetic is the same op
+for op, so the two agree to a few float32 ulp: XLA may contract a multiply
+and an add into one FMA in one compilation and not in the other.
 """
 
+import types
 
 import numpy as np
 import pytest
 
+import jax
 import jax.numpy as jnp
+from jax.experimental import pallas as pl
 
-from icar_tpu.ops import pallas_kernels as pk
+from icar_tpu.ops import sb04_kernel as sk
+from icar_tpu.physics import mp_simple
+
+NAMES = ("theta", "qv", "qc", "qr", "qs", "rain", "snow")
 
 
 def assert_ulp_equal(got, want, msg, rtol=5e-6, atol=1e-8):
     np.testing.assert_allclose(np.asarray(got), np.asarray(want),
                                rtol=rtol, atol=atol, err_msg=msg)
-
-
-@pytest.fixture()
-def interpret_kernels():
-    prev = pk.force_interpret(True)
-    yield
-    pk.force_interpret(prev)
 
 
 def _fields(seed, nz=10, ny=9, nx=17):
@@ -44,124 +41,93 @@ def _fields(seed, nz=10, ny=9, nx=17):
     return f(p), f(t), f(qv), f(qc)
 
 
-def test_saturation_inline_bit_exact(interpret_kernels):
-    """The fused kernel's saturation-adjustment stage equals the jnp
-    cloud_conversion (checked in isolation via a throwaway pallas_call)."""
-    import jax
-    from jax.experimental import pallas as pl
-    from icar_tpu.physics import mp_simple
+def _scheme_inputs(seed, nz=10, ny=9, nx=17, rain=True, snow=True):
+    p, t, qv, qc = _fields(seed, nz, ny, nx)
+    r = np.random.default_rng(seed + 1)
+    shape = p.shape
 
+    def hydro(on):
+        if not on:
+            return jnp.zeros(shape, jnp.float32)
+        return jnp.asarray(np.where(r.uniform(size=shape) < 0.4,
+                                    r.uniform(0, 5e-4, shape), 0.0),
+                           jnp.float32)
+
+    qr, qs = hydro(rain), hydro(snow)
+    exner = (p / 100000.0) ** np.float32(0.2857)
+    theta = t / exner
+    rho = p / (np.float32(287.0) * t)
+    acc_r = jnp.asarray(r.uniform(0, 3, shape[1:]), jnp.float32)
+    acc_s = jnp.asarray(r.uniform(0, 1, shape[1:]), jnp.float32)
+    dz = jnp.asarray(np.full(shape, 250.0)
+                     * r.uniform(0.6, 1.4, (nz, 1, 1)), jnp.float32)
+    return p, theta, exner, rho, qv, qc, qr, qs, acc_r, acc_s, dz
+
+
+def _kernel_scheme(args, dt, **kw):
+    """mp_simple through the kernel, in interpret mode."""
+    p, theta, exner, rho, qv, qc, qr, qs, rain, snow, dz = args
+    return sk.mp_simple(p, theta, exner, rho, qv, qc, qr, qs, rain, snow,
+                        dt, dz, interpret=True, **kw)
+
+
+def _jnp_scheme(args, dt):
+    p, theta, exner, rho, qv, qc, qr, qs, rain, snow, dz = args
+    return mp_simple.mp_simple_jnp(p, theta, exner, rho, qv, qc, qr, qs,
+                                   rain, snow, dt, dz)
+
+
+def _compare(args, dt, label, **kw):
+    got = _kernel_scheme(args, np.float32(dt), **kw)
+    want = _jnp_scheme(args, np.float32(dt))
+    for name, g, w in zip(NAMES, got, want):
+        assert g.shape == w.shape, f"{label}: {name} shape"
+        assert_ulp_equal(g, w, f"{label}: kernel vs jnp on {name}",
+                         rtol=1e-5, atol=1e-8)
+    return got, want
+
+
+def _level_call(fn, n_out, *arrays):
+    """Run ``fn`` on per-level lists of one block's columns through a
+    throwaway Triton-route pallas_call in interpret mode."""
+    nz, ny, nx = arrays[0].shape
+    ncol = ny * nx
+    flat = [a.reshape(nz, ncol) for a in arrays]
+
+    def kern(*refs):
+        ins, outs = refs[:len(flat)], refs[len(flat):]
+        res = fn([[r[k] for k in range(nz)] for r in ins])
+        for o, v in zip(outs, res):
+            for k in range(nz):
+                o[k] = v[k]
+
+    return pl.pallas_call(
+        kern, backend="triton", interpret=True,
+        out_shape=[jax.ShapeDtypeStruct((nz, ncol), jnp.float32)] * n_out,
+    )(*flat)
+
+
+def test_saturation_inline_bit_exact():
+    """The kernel's saturation stage equals the jnp cloud_conversion
+    (checked in isolation, one level per loop as in the kernel)."""
     p, t, qv, qc = _fields(3)
 
-    def kern(p_ref, t_ref, qv_ref, qc_ref, t_o, qv_o, qc_o, qvs_o):
-        out = pk._sat_adjust_inline(p_ref[:], t_ref[:], qv_ref[:], qc_ref[:])
-        t_o[:], qv_o[:], qc_o[:], qvs_o[:] = out
+    def fn(levels):
+        ps, ts, qvs, qcs = levels
+        outs = [sk._saturation(*a) for a in zip(ps, ts, qvs, qcs)]
+        return [list(o) for o in zip(*outs)]
 
-    nz, ny, nx = p.shape
-    flat = lambda a: a.reshape(nz * ny, nx)
-    got = pl.pallas_call(
-        kern, interpret=True,
-        out_shape=[jax.ShapeDtypeStruct((nz * ny, nx), jnp.float32)] * 4,
-    )(flat(p), flat(t), flat(qv), flat(qc))
+    got = _level_call(fn, 4, p, t, qv, qc)
     want = mp_simple.cloud_conversion(p, t, qv, qc, 40.0)
     for name, g, w in zip(("t", "qv", "qc", "qvsat"), got, want):
         assert_ulp_equal(g.reshape(p.shape), w,
                          f"saturation stage {name} != jnp path")
 
 
-def test_advect_kernel_bit_exact(interpret_kernels):
-    from icar_tpu.ops import advection
-
-    r = np.random.default_rng(5)
-    S, nz, ny, nx = 3, 8, 11, 13
-    q = jnp.asarray(r.uniform(0.1, 1.0, (S, nz, ny, nx)), jnp.float32)
-    u = jnp.asarray(r.uniform(-6, 6, (nz, ny, nx + 1)), jnp.float32)
-    v = jnp.asarray(r.uniform(-6, 6, (nz, ny + 1, nx)), jnp.float32)
-    w = jnp.asarray(r.uniform(-1, 1, (nz, ny, nx)), jnp.float32)
-    dz = jnp.asarray(np.full((nz, ny, nx), 200.0), jnp.float32)
-    jaco = jnp.asarray(r.uniform(0.8, 1.2, (nz, ny, nx)), jnp.float32)
-    jaco_u = jnp.asarray(r.uniform(0.8, 1.2, (nz, ny, nx + 1)), jnp.float32)
-    jaco_v = jnp.asarray(r.uniform(0.8, 1.2, (nz, ny + 1, nx)), jnp.float32)
-    jaco_w = jnp.asarray(r.uniform(0.8, 1.2, (nz, ny, nx)), jnp.float32)
-    dt, dx = np.float32(20.0), np.float32(1000.0)
-
-    got = pk.advect_upwind_tpu(q, u, v, w, dx, jaco_u, jaco_v, jaco_w,
-                               dz, jaco, dt)
-    want = advection.advect_upwind(q, u, v, w, dt, dx, jaco_u, jaco_v,
-                                   jaco_w, jaco, None, dz, False,
-                                   use_pallas=False)
-    assert_ulp_equal(got, want, "advect kernel != jnp path", atol=1e-7)
-
-    # with the enforce_limits clamp folded in (near_end=1), both paths
-    # clamp identically
-    floors = np.asarray([0.0, -np.inf, 1e-1], np.float32)
-    got_c = pk.advect_upwind_tpu(q, u, v, w, dx, jaco_u, jaco_v, jaco_w,
-                                 dz, jaco, dt, floors=floors,
-                                 near_end=jnp.float32(1.0))
-    want_c = advection.advect_upwind(q, u, v, w, dt, dx, jaco_u, jaco_v,
-                                     jaco_w, jaco, None, dz, False,
-                                     use_pallas=False, floors=floors,
-                                     near_end=jnp.float32(1.0))
-    assert_ulp_equal(got_c, want_c, "advect kernel clamp != jnp clamp",
-                     atol=1e-7)
-
-
-def test_mp_padded_stack_matches_flat(interpret_kernels):
-    """The padded-stack SB04 kernel (fast interval path) equals the
-    flat-operand kernel on the data cells, with garbage in the ghost/pad
-    cells unable to pollute them."""
-    p, t, qv, qc = _fields(21)
-    r = np.random.default_rng(22)
-    shape = p.shape
-    nz, ny, nx = shape
-    qr = jnp.asarray(np.where(r.uniform(size=shape) < 0.4,
-                              r.uniform(0, 5e-4, shape), 0.0), jnp.float32)
-    qs = jnp.asarray(np.where(r.uniform(size=shape) < 0.4,
-                              r.uniform(0, 5e-4, shape), 0.0), jnp.float32)
-    exner = (p / 100000.0) ** np.float32(0.2857)
-    theta = t / exner
-    # the padded kernel computes rho in-kernel as p/(RD*(theta*exner));
-    # feed the flat kernel the identical value
-    rho = p / (np.float32(287.058) * (theta * exner))
-    rain = jnp.asarray(r.uniform(0, 3, (ny, nx)), jnp.float32)
-    snow = jnp.asarray(r.uniform(0, 1, (ny, nx)), jnp.float32)
-    dz = jnp.asarray(np.full(shape, 250.0), jnp.float32)
-    dt = np.float32(50.0)
-    c2r, c2s = np.float32(0.905), np.float32(0.975)
-
-    want = pk.mp_simple_tpu(p, theta, exner, rho, qv, qc, qr, qs,
-                            rain, snow, dt, dz, c2r, c2s)
-
-    pad = lambda a: pk.pad_to_stack_layout(a, ny, nx)
-    qpad = pad(jnp.stack([theta, qv, qc, qr, qs]))
-    # poison the ghost/pad cells: results on data cells must not change
-    ny_pad, P, R, front = pk.padded_geometry(ny, nx)
-    mask = pk.stack_valid_mask(ny, nx).reshape(R, P) > 0
-    qpad = jnp.where(mask[None, None], qpad, jnp.inf)
-    rain_p = jnp.zeros((R, P), jnp.float32)
-    rain_p = rain_p.at[front:front + ny, :nx].set(rain)
-    snow_p = jnp.zeros((R, P), jnp.float32)
-    snow_p = snow_p.at[front:front + ny, :nx].set(snow)
-    out_q, out_r, out_s = pk.mp_simple_padded(
-        qpad, pad(p), pad(exner), pad(dz), rain_p, snow_p,
-        jnp.asarray(pk.stack_valid_mask(ny, nx)), dt, c2r, c2s,
-        (0, 1, 2, 3, 4))
-    got = [out_q[i, :, front:front + ny, :nx] for i in range(5)] \
-        + [out_r[front:front + ny, :nx], out_s[front:front + ny, :nx]]
-    for name, g, w in zip(("theta", "qv", "qc", "qr", "qs", "rain", "snow"),
-                          got, want):
-        assert_ulp_equal(g, w, f"padded mp kernel vs flat: {name}",
-                         rtol=1e-5, atol=1e-8)
-
-
 @pytest.mark.parametrize("snow", [False, True])
-def test_sediment_inline_bit_exact(interpret_kernels, snow):
-    """The fused kernel's sedimentation stage equals the jnp
-    _sediment_species (checked in isolation via a throwaway pallas_call)."""
-    import jax
-    from jax.experimental import pallas as pl
-    from icar_tpu.physics import mp_simple
-
+def test_sediment_inline_bit_exact(snow):
+    """The kernel's sedimentation stage equals the jnp _sediment_species
+    (checked in isolation)."""
     r = np.random.default_rng(9)
     nz, ny, nx = 10, 7, 12
     p, t, qv, _ = _fields(9, nz, ny, nx)
@@ -184,13 +150,21 @@ def test_sediment_inline_bit_exact(interpret_kernels, snow):
 
     def kern(q_ref, qv_ref, t_ref, p_ref, rho_ref, dz_ref,
              q_o, qv_o, t_o, pr_o):
-        out = pk._sediment_inline(q_ref[:], qv_ref[:], t_ref[:], p_ref[:],
-                                  rho_ref[:], dz_ref[:], dt, fall,
-                                  evap_base, snow)
-        q_o[:], qv_o[:], t_o[:], pr_o[:] = out
+        named = {"p": p_ref, "rho": rho_ref, "dz": dz_ref}
+        for k in range(nz):
+            q_o[k], qv_o[k], t_o[k] = q_ref[k], qv_ref[k], t_ref[k]
+
+        def load(ref, k):
+            return (named[ref] if isinstance(ref, str) else ref)[k]
+
+        def store(ref, k, v):
+            ref[k] = v
+
+        pr_o[0] = sk._sediment(q_o, qv_o, t_o, load, store, nz, dt, fall,
+                               evap_base, snow)
 
     got = pl.pallas_call(
-        kern, interpret=True,
+        kern, interpret=True, backend="triton",
         out_shape=[jax.ShapeDtypeStruct((nz, M), jnp.float32)] * 3
         + [jax.ShapeDtypeStruct((1, M), jnp.float32)],
     )(flat(q), flat(qv), flat(t), flat(p), flat(rho), flat(dz))
@@ -202,64 +176,112 @@ def test_sediment_inline_bit_exact(interpret_kernels, snow):
                          f"sediment stage {name} != jnp path (snow={snow})")
 
 
-def test_mp_simple_pallas_path_matches_jnp(interpret_kernels):
-    """End-to-end: the full mp_simple scheme with kernels enabled equals
-    the pure-jnp path."""
-    from icar_tpu.physics import mp_simple
-
-    p, t, qv, qc = _fields(13)
-    r = np.random.default_rng(14)
-    shape = p.shape
-    qr = jnp.asarray(np.where(r.uniform(size=shape) < 0.4,
-                              r.uniform(0, 5e-4, shape), 0.0), jnp.float32)
-    qs = jnp.asarray(np.where(r.uniform(size=shape) < 0.4,
-                              r.uniform(0, 5e-4, shape), 0.0), jnp.float32)
-    exner = (p / 100000.0) ** np.float32(0.2857)
-    theta = t / exner
-    rho = p / (np.float32(287.0) * t)
-    rain = jnp.zeros(shape[1:], jnp.float32)
-    snow = jnp.zeros(shape[1:], jnp.float32)
-    dz = jnp.asarray(np.full(shape, 250.0), jnp.float32)
-
-    got = mp_simple.mp_simple(p, theta, exner, rho, qv, qc, qr, qs,
-                              rain, snow, np.float32(50.0), dz,
-                              use_pallas=True)
-    want = mp_simple.mp_simple(p, theta, exner, rho, qv, qc, qr, qs,
-                               rain, snow, np.float32(50.0), dz,
-                               use_pallas=False)
-    for name, g, w in zip(("theta", "qv", "qc", "qr", "qs", "rain", "snow"),
-                          got, want):
-        assert_ulp_equal(g, w, f"mp_simple pallas vs jnp: {name}",
-                         rtol=1e-5, atol=1e-8)
+def test_mp_simple_pallas_path_matches_jnp():
+    """End-to-end: the whole scheme through the kernel equals the jnp
+    path, with the accumulators added as mp_simple adds them."""
+    _compare(_scheme_inputs(13), 50.0, "mixed")
 
 
-def test_mpdata_kernel_equivalence(interpret_kernels):
-    """The fused MPDATA window kernel (order-2 + FCT) equals the jnp
-    reference path — same single-source math, so this guards the window
-    plumbing: halo DMA alignment, the V-face mapping, the global-index
-    boundary masks and the FCT no-limit masks."""
-    from icar_tpu.ops import mpdata as md
-    from icar_tpu.ops import pallas_kernels as pk
+@pytest.mark.parametrize("nz,ny,nx,block", [
+    (20, 9, 23, 128),     # nz=20 (the bench depth) is not a power of two
+    (7, 5, 13, 32),       # 65 columns: two full blocks and one partial
+    (3, 1, 1, 64),        # one column, mostly masked lanes
+])
+def test_kernel_odd_shapes_match_jnp(nz, ny, nx, block):
+    _compare(_scheme_inputs(30 + nz, nz, ny, nx), 40.0,
+             f"{nz}x{ny}x{nx}/block {block}", block=block)
 
-    r = np.random.default_rng(17)
-    S, nz, ny, nx = 4, 8, 37, 41      # odd sizes exercise pad lanes/rows
-    q = jnp.asarray(r.uniform(0.1, 1.0, (S, nz, ny, nx)), jnp.float32)
-    u = jnp.asarray(r.uniform(-6, 6, (nz, ny, nx + 1)), jnp.float32)
-    v = jnp.asarray(r.uniform(-6, 6, (nz, ny + 1, nx)), jnp.float32)
-    w = jnp.asarray(r.uniform(-1, 1, (nz, ny, nx)), jnp.float32)
-    dz = jnp.asarray(r.uniform(200, 400, (nz, ny, nx)), jnp.float32)
-    jaco = jnp.asarray(r.uniform(0.8, 1.2, (nz, ny, nx)), jnp.float32)
-    ju = jnp.asarray(r.uniform(0.8, 1.2, (nz, ny, nx + 1)), jnp.float32)
-    jv = jnp.asarray(r.uniform(0.8, 1.2, (nz, ny + 1, nx)), jnp.float32)
-    jw = jnp.asarray(r.uniform(0.8, 1.2, (nz, ny, nx)), jnp.float32)
-    dt, dx = 20.0, 1000.0
 
-    for order, fct in ((2, True), (2, False), (3, True)):
-        want = md.advect_mpdata(q, u, v, w, dt, dx, ju, jv, jw, jaco,
-                                None, dz, order=order, use_fct=fct,
-                                use_pallas=False)
-        got = pk.advect_mpdata_tpu(q, u, v, w, dx, ju, jv, jw, dz, jaco,
-                                   dt, order, fct)
-        assert_ulp_equal(got, want, f"MPDATA kernel (order={order}, "
-                                    f"fct={fct}) != jnp path",
-                         rtol=2e-5, atol=1e-6)
+def test_kernel_all_converged_is_identity_on_saturation():
+    """A state already at saturation equilibrium with no hydrometeors:
+    the saturation loop exits after one trip and no fall loop runs."""
+    p, theta, exner, rho, qv, qc, qr, qs, rain, snow, dz = \
+        _scheme_inputs(41, rain=False, snow=False)
+    t = theta * exner
+    args = (p, theta, exner, rho, 0.5 * mp_simple.sat_mr(t, p),
+            jnp.zeros_like(qc), qr, qs, rain, snow, dz)
+    got, _ = _compare(args, 30.0, "all-converged")
+    np.testing.assert_array_equal(np.asarray(got[5]), np.asarray(rain))
+    np.testing.assert_array_equal(np.asarray(got[6]), np.asarray(snow))
+
+
+def test_kernel_non_converging_cells_revert():
+    """Cells that stay active through all 15 trips revert to their entry
+    state (the reference's diverging-iteration revert): near p ~ e_s the
+    halving iteration cannot converge within 15 trips."""
+    p, theta, exner, rho, qv, qc, qr, qs, rain, snow, dz = \
+        _scheme_inputs(43)
+    # grossly supersaturated cells: every trip halves an excess far above
+    # MAXERR, so 15 trips cannot converge them
+    qv = qv.at[:, :2, :3].set(2.0)
+    args = (p, theta, exner, rho, qv, qc, qr, qs, rain, snow, dz)
+    _, qv_k, qc_k = _kernel_scheme(args, np.float32(30.0))[:3]
+    _, qv_j, qc_j = _jnp_scheme(args, np.float32(30.0))[:3]
+    t0 = theta * exner
+    reverted = np.asarray(mp_simple.sat_mr(t0, p))[:, :2, :3]
+    assert_ulp_equal(qv_j[:, :2, :3], reverted, "jnp revert")
+    assert_ulp_equal(qv_k[:, :2, :3], reverted, "kernel revert")
+    _compare(args, 30.0, "revert")
+
+
+@pytest.mark.parametrize("rain,snow", [(True, False), (False, True)])
+def test_kernel_single_species_fall(rain, snow):
+    """Rain-only and snow-only states: one fall loop runs, the other
+    species' loop is skipped, in both paths."""
+    args = _scheme_inputs(50 + rain, nz=12, ny=6, nx=11, rain=rain,
+                          snow=snow)
+    # cold enough aloft that the snow case keeps its snow
+    got, _ = _compare(args, 60.0, f"rain={rain} snow={snow}")
+    if rain:
+        np.testing.assert_array_equal(np.asarray(got[6]),
+                                      np.asarray(args[9]))
+
+
+@pytest.mark.parametrize("platform,sharded,chosen", [
+    ("gpu", False, "kernel"), ("gpu", True, "sharded"),
+    ("cpu", False, "jnp"), ("cpu", True, "jnp"), ("cuda", False, "jnp")])
+def test_kernel_chosen_only_on_gpu(monkeypatch, platform, sharded, chosen):
+    """mp_simple's one dispatch: the kernel (per shard under a mesh) for
+    a device whose platform is ``gpu``, the jnp scheme for any other."""
+    from icar_tpu.core import state
+
+    calls = []
+    monkeypatch.setattr(sk, "mp_simple",
+                        lambda *a, **k: calls.append("kernel"))
+    monkeypatch.setattr(sk, "mp_simple_sharded",
+                        lambda *a, **k: calls.append("sharded"))
+    monkeypatch.setattr(mp_simple, "mp_simple_jnp",
+                        lambda *a: calls.append("jnp"))
+    device = types.SimpleNamespace(platform=platform)
+    mesh = None
+    if sharded:
+        mesh = types.SimpleNamespace(devices=np.array([device], object))
+    else:
+        monkeypatch.setattr(state, "compute_device", lambda: device)
+    mp_simple.mp_simple(*([None] * 12), mesh=mesh)
+    assert calls == [chosen]
+
+
+def test_mp_simple_uses_jnp_off_gpu(monkeypatch):
+    """On this backend mp_simple must not reach the kernel."""
+    def boom(*a, **k):
+        raise AssertionError("kernel called off the GPU")
+
+    monkeypatch.setattr(sk, "mp_simple", boom)
+    args = _scheme_inputs(60, nz=4, ny=3, nx=5)
+    p, theta, exner, rho, qv, qc, qr, qs, rain, snow, dz = args
+    mp_simple.mp_simple(p, theta, exner, rho, qv, qc, qr, qs, rain, snow,
+                        np.float32(20.0), dz)
+
+
+def test_kernel_lowers_for_cuda():
+    """The kernel lowers through the Triton route for a CUDA target (the
+    Pallas-to-Triton step runs here; the card compiles the result)."""
+    args = _scheme_inputs(70, nz=20, ny=4, nx=40)
+    p, theta, exner, rho, qv, qc, qr, qs, rain, snow, dz = args
+    lowered = jax.jit(
+        lambda *a: sk.mp_simple(*a[:10], np.float32(30.0), a[10])).trace(
+        p, theta, exner, rho, qv, qc, qr, qs, rain, snow, dz).lower(
+        lowering_platforms=("cuda",))
+    text = lowered.as_text()
+    assert "triton" in text and "sb04_microphysics" in text

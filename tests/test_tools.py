@@ -521,3 +521,17 @@ def test_reanalysis2icar_dataset_presets(tmp_path):
                                    [90000, 70000, 50000])
         np.testing.assert_allclose(f.read("z")[0, :, 0, 0],
                                    [500, 3000, 8000])
+
+
+@pytest.mark.parametrize("fault", ["no-sedimentation", "one-saturation-trip",
+                                   "rain-formation-x2"])
+def test_ridge_tolerance_rejects_planted_fault(fault):
+    """chip_smoke.RIDGE_TOL rejects each fault that
+    tools/ridge_tol_control.py plants in the SB04 scheme (here on the CPU
+    at 60x60x20; the tool runs it on the card at full width)."""
+    import ridge_tol_control
+
+    [(name, rejected, lines)] = list(
+        ridge_tol_control.verdicts((20, 60, 60), names=[fault]))
+    assert name == fault
+    assert rejected, "\n".join(lines)

@@ -1,7 +1,7 @@
 #!/usr/bin/env python
 """Aggregate per-step output files into one time-series NetCDF file.
 
-TPU-repo analog of the reference's offline output recombination
+The counterpart of the reference's offline output recombination
 (/root/reference/helpers/aggregate_parallel_files.py). The reference
 writes one file per *image* and stitches the domain back together from
 the decomposition attributes; icar_tpu already writes global-domain

@@ -1,6 +1,6 @@
 #!/bin/bash
 # Self-resubmitting LSF driver for a chained icar_tpu run.
-# TPU-repo equivalent of /root/reference/helpers/batch_submit_LSF.sh;
+# Counterpart of /root/reference/helpers/batch_submit_LSF.sh;
 # see batch_submit_SLURM.sh for the chaining logic. Submit with:
 #   bsub < tools/batch_submit_LSF.sh
 #

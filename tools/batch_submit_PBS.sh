@@ -1,6 +1,6 @@
 #!/bin/bash
 # Self-resubmitting PBS driver for a chained icar_tpu run.
-# TPU-repo equivalent of /root/reference/helpers/batch_submit_PBS.sh;
+# Counterpart of /root/reference/helpers/batch_submit_PBS.sh;
 # see batch_submit_SLURM.sh for the chaining logic. Submit with:
 #   qsub tools/batch_submit_PBS.sh
 #

@@ -1,6 +1,6 @@
 #!/bin/bash
 # Self-resubmitting SLURM driver for a chained icar_tpu run.
-# TPU-repo equivalent of /root/reference/helpers/batch_submit_SLURM.sh:
+# Counterpart of /root/reference/helpers/batch_submit_SLURM.sh:
 # each job resumes from the newest restart checkpoint (via
 # tools/setup_next_run.py), submits its successor with an
 # afternotok dependency, and stops resubmitting once the model reaches

@@ -1,7 +1,7 @@
 #!/usr/bin/env python
 """Repair the time axis of an icar_tpu output file.
 
-TPU-repo equivalent of /root/reference/helpers/fix_icar_time.py: when a
+The counterpart of /root/reference/helpers/fix_icar_time.py: when a
 run is restarted without removing the output file it was restarting
 into, the appended frames can carry duplicate or backward-jumping time
 stamps. This tool rewrites ``model_time`` as a clean monotonic axis

@@ -1,7 +1,7 @@
 #!/usr/bin/env python
 """Generate a WRF ``input_sounding``-style text file.
 
-TPU-repo equivalent of /root/reference/helpers/gen_sounding.py: first
+The counterpart of /root/reference/helpers/gen_sounding.py: first
 line is ``p_surf[hPa] theta_surf[K] qv_surf[g/kg]``, then one line per
 level of ``z[m] theta[K] qv[g/kg] u[m/s] v[m/s]``. Two temperature
 profiles: a linear potential-temperature lapse rate (default), or a

@@ -3,9 +3,9 @@
 
 Times each piece of the inner loop (CFL reduction, diagnostics, simple
 microphysics, upwind advection, and the composed substep) on the bench
-domain, and converts each to achieved HBM bandwidth from an analytic
-bytes-touched model. This is the roofline evidence behind bench.py's
-roofline_pct (see docs/perf_roofline.md).
+domain, and converts each to achieved device-memory bandwidth from an
+analytic bytes-touched model, as a share of the published peak in
+bench.py's HBM_PEAK_GBPS.
 
 Usage: python tools/perf_breakdown.py [NX NY NZ]
 """
@@ -18,18 +18,8 @@ sys.path.insert(0, __import__("os").path.dirname(
 
 import jax
 import jax.numpy as jnp
-import numpy as np
 
-# v5e HBM peak (GB/s); see https://cloud.google.com/tpu/docs/v5e
-HBM_PEAK = {"TPU v5 lite": 819.0, "TPU v4": 1228.0, "TPU v6 lite": 1640.0}
-
-
-def peak_for(device) -> float:
-    name = str(device)
-    for k, v in HBM_PEAK.items():
-        if k in name:
-            return v
-    return 819.0
+from bench import peak_for
 
 
 def timeit(fn, *args, n=20):
@@ -86,12 +76,12 @@ def main():
     t = timeit(f, dict(s))
     report("diagnostic_update(partial)", t, 4 + 7)
 
-    # --- mp_simple (Pallas saturation + conversions + sedimentation)
+    # --- mp_simple (the SB04 kernel on the GPU)
     f = jax.jit(lambda st: mp_simple.mp_simple(
         st["pressure"], st["potential_temperature"], st["exner"],
         st["density"], st["water_vapor"], st["cloud_water"],
         st["rain_mass"], st["snow_mass"], st["precipitation"],
-        st["snowfall"], dt, dz3, use_pallas=True))
+        st["snowfall"], dt, dz3))
     t = timeit(f, dict(s))
     report("mp_simple", t, 8 + 4 + 11 + 10 + 10)
 
@@ -105,8 +95,7 @@ def main():
     adz = jnp.asarray(geom.advection_dz)
 
     f = jax.jit(lambda q, u, v, w, rho: advection.advect_upwind(
-        q, u, v, w, dt, geom.dx, ju, jv, jw, jc, rho, adz,
-        False, use_pallas=True))
+        q, u, v, w, dt, geom.dx, ju, jv, jw, jc, rho, adz, False))
     t = timeit(f, stacked, s["u"], s["v"], s["w"], s["density"])
     nq = len(adv)
     report(f"advect_upwind({nq} species)", t, nq * 7 + 8)

@@ -1,7 +1,7 @@
 #!/usr/bin/env python
 """Quick-look map plots from an icar_tpu output file.
 
-TPU-repo equivalent of the reference's quick-look plotting helper
+The counterpart of the reference's quick-look plotting helper
 (/root/reference/helpers/bin/plot_icar.py): given an output NetCDF file,
 render a lat/lon map of one or more variables (surface / column-max for
 3D fields) to an image file.

@@ -2,7 +2,7 @@
 """Convert reanalysis / GCM NetCDF (ERA5-style pressure levels, or hybrid
 sigma levels) into icar_tpu forcing files.
 
-The TPU-native counterpart of the reference's per-dataset converters
+The counterpart of the reference's per-dataset converters
 (/root/reference/helpers/erai/*.py, ccsm/ cesm/ cmip/ directories, and
 helpers/gen_bc.py): one generic tool instead of one script per dataset.
 

@@ -1,7 +1,7 @@
 #!/usr/bin/env python
 """Prepare an options file to resume (chain) a simulation from restart.
 
-TPU-repo equivalent of the reference's restart-chaining helper
+The counterpart of the reference's restart-chaining helper
 (/root/reference/helpers/setup_next_run.py): given an options namelist,
 verify a restart checkpoint exists for its configured restart_file
 prefix and rewrite the namelist with ``restart = .True.`` so the next

@@ -12,7 +12,7 @@ What CAN be measured honestly on fixed hardware is the cost GSPMD adds:
 the same domain, on the same machine, sharded over N devices versus
 unsharded. That captures the partition-specific work — halo collectives
 (emulated in-process), the padded-frame slice/write-back, per-shard
-launch overhead — everything except real ICI latency, which only a real
+launch overhead — everything except real inter-device link latency, which only a real
 slice can show. overhead(N) = t_sharded / t_unsharded; 1.0 = free.
 
 Each point grows the domain with N (weak-scaling shapes), so the

@@ -1,7 +1,7 @@
 #!/usr/bin/env python
 """Convert WRF output (wrfout) files into icar_tpu forcing files.
 
-The TPU-native equivalent of the reference's WRF preprocessing
+The counterpart of the reference's WRF preprocessing
 (/root/reference/helpers/wrf/wrf2icar.py + wrf_vars.py, and the NCO
 script helpers/wrf2icar.sh): reads one or more wrfout files, computes
 the derived fields ICAR wants, destaggers winds and geopotential to
